@@ -58,10 +58,14 @@ class PlayerResult:
     success: bool = False
     frame_processing_times_ms: List[float] = field(default_factory=list)
     avg_processing_time_ms: float = 0.0
+    # Per-frame estimator outputs, for the statistics below.
+    n_tracked: List[int] = field(default_factory=list)
+    ba_success: List[bool] = field(default_factory=list)
+    is_keyframe: List[bool] = field(default_factory=list)
 
 
-def _imu_buffer_for_frame(imu_data, prev_ts, cur_ts, buf: int = 64,
-                          np_dtype=np.float32):
+def imu_buffer_for_frame(imu_data, prev_ts, cur_ts, buf: int = 64,
+                         np_dtype=np.float32):
     """Fixed-capacity masked IMU buffer for the interval (prev_ts, cur_ts]."""
     import jax.numpy as jnp
 
@@ -105,8 +109,6 @@ def run_player(player, config_path: str, pcfg: PlayerConfig) -> PlayerResult:
     from ..viewers import create_viewer
     from .. import profiling
 
-    from ..utils.cache import enable_compilation_cache
-    enable_compilation_cache()
     from ..utils.precision import ensure_matmul_precision
     ensure_matmul_precision()
 
@@ -123,13 +125,6 @@ def run_player(player, config_path: str, pcfg: PlayerConfig) -> PlayerResult:
         log.info("precision: f64 (jax x64 enabled)")
     dtype = jnp.float64 if cfg.precision == "f64" else jnp.float32
     ecfg, rig = make_estimator_config(cfg)
-    from ..ops.klt import resolve_backend
-    if jax.default_backend() == "tpu" and \
-            resolve_backend(ecfg.frontend.klt) == "xla":
-        log.warning(
-            "tracker routed to the XLA gather path on TPU (backend/"
-            "residual_mode/lm_lambda settings) — orders of magnitude "
-            "slower than the Pallas kernel")
 
     imu_data = None
     if pcfg.use_vio:
@@ -141,26 +136,8 @@ def run_player(player, config_path: str, pcfg: PlayerConfig) -> PlayerResult:
                 "gyro": np.asarray([s.gyro for s in samples], np.float32),
                 "accel": np.asarray([s.accel for s in samples], np.float32),
             }
-            from ..utils.config import make_imu_params
-            from ..models.vio_ba import VIOBAConfig
-            # Re-resolve the config for the VIO estimator kind (the
-            # "auto" centering policy lives in make_estimator_config —
-            # the single construction point).
-            ecfg, rig = make_estimator_config(cfg, kind="vio")
-            vcfg = ev.VIOEstimatorConfig(
-                base=ecfg, imu_params=make_imu_params(cfg),
-                vio=VIOBAConfig(huber_delta=cfg.solver.huber_delta,
-                                cost_tol=cfg.solver.cost_tol,
-                                param_tol=cfg.solver.param_tol,
-                                chi2_gate=cfg.solver.chi2_gate,
-                                chi2_gate_iter=cfg.solver.chi2_gate_iter,
-                                bias_gyro_weight=cfg.solver.bias_gyro_weight,
-                                bias_accel_weight=cfg.solver.bias_accel_weight,
-                                bias_gyro_weight_desert=(
-                                    cfg.solver.bias_gyro_weight_desert),
-                                bias_accel_weight_desert=(
-                                    cfg.solver.bias_accel_weight_desert),
-                                min_lm_span=cfg.solver.min_lm_span))
+            from ..utils.config import make_vio_estimator_config
+            vcfg, rig = make_vio_estimator_config(cfg)
             step = ev.make_vio_estimator_step(vcfg)
             # Gravity-aligned bootstrap from the quasi-static head of the
             # IMU stream (first ~0.5 s): initial attitude + gyro bias.
@@ -229,8 +206,9 @@ def run_player(player, config_path: str, pcfg: PlayerConfig) -> PlayerResult:
                                                0, n_frames)
     if frame_iter is None:
         frame_iter = prefetch_frames(player, 0, n_frames)
+        log.info("frame loader: Python PNG decoder")
     else:
-        log.info("using native C++ frame loader")
+        log.info("frame loader: native C++ (libpng)")
     profile_ctx = None
     if pcfg.profile_dir:
         from .. import profiling as _prof
@@ -266,7 +244,7 @@ def run_player(player, config_path: str, pcfg: PlayerConfig) -> PlayerResult:
                 img_r = jnp.asarray(frame.right, dtype)
             with profiling.span("process_frame"):
                 if imu_data is not None:
-                    gy, ac, dt_s, msk = _imu_buffer_for_frame(
+                    gy, ac, dt_s, msk = imu_buffer_for_frame(
                         imu_data, prev_ts, frame.timestamp_ns, buf=64,
                         np_dtype=np.float64 if cfg.precision == "f64"
                         else np.float32)
@@ -291,6 +269,9 @@ def run_player(player, config_path: str, pcfg: PlayerConfig) -> PlayerResult:
         T = np.asarray(out.T_W_B)
         timestamps.append(frame.timestamp_ns)
         poses.append(T)
+        result.n_tracked.append(int(out.n_tracked))
+        result.ba_success.append(bool(out.ba_success))
+        result.is_keyframe.append(bool(out.is_keyframe))
         if bool(out.is_keyframe):
             # Reference appends the OLDEST window pose per BA
             # (ref estimator.rs:355-361); we record the current KF pose.
@@ -439,6 +420,14 @@ def run_player(player, config_path: str, pcfg: PlayerConfig) -> PlayerResult:
                 f.write(f"frames_processed: {len(times)}\n")
                 f.write(f"avg_processing_time_ms: {result.avg_processing_time_ms:.3f}\n")
                 f.write(f"fps: {1000.0 / result.avg_processing_time_ms:.3f}\n")
+                # The first frame compiles the step; the rest are warm.
+                f.write(f"first_frame_ms: {times[0]:.3f}\n")
+                if len(times) > 1:
+                    f.write(f"warm_median_ms: {np.median(times[1:]):.3f}\n")
+                tracked = result.n_tracked[1:] or [0]
+                f.write(f"tracked_mean: {np.mean(tracked):.3f}\n")
+                f.write(f"ba_fires: {sum(result.ba_success)}\n")
+                f.write(f"keyframes: {sum(result.is_keyframe)}\n")
                 if ate is not None:
                     f.write(f"ate_rmse_m: {ate:.6f}\n")
             log.info("statistics -> %s", stats_path)
@@ -500,7 +489,9 @@ def make_cli(player_cls, name: str):
             evaluate_ate=args.eval_ate,
             marginalization=args.marginalization,
             stage_timing=args.stage_timing)
-        res = run_player(player, args.config_file, pcfg)
+        from ..utils.cache import compilation_cache
+        with compilation_cache():
+            res = run_player(player, args.config_file, pcfg)
         return 0 if res.success else -1
 
     return main

@@ -47,9 +47,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
     setup_logging(verbose=not args.quiet)
     np.random.seed(42)
+    from ..utils.cache import compilation_cache
+    with compilation_cache():
+        return _track(args)
 
-    from ..utils.cache import enable_compilation_cache
-    enable_compilation_cache()
+
+def _track(args) -> int:
     from ..utils.precision import ensure_matmul_precision
     ensure_matmul_precision()
     import jax
@@ -96,12 +99,6 @@ def main(argv=None):
         # Gaussian vs our 3x3 box).
         if "detection_threshold" in y:
             min_score = float(y["detection_threshold"]) / 4000.0
-        if lm_lambda > 0 and jax.default_backend() == "tpu":
-            log.warning(
-                "optical_flow_lm_lambda > 0 routes tracking onto the XLA "
-                "gather path (the Pallas kernel implements pure GN) — "
-                "orders of magnitude slower on TPU. Set it to 0 to use "
-                "the kernel.")
 
     cfg = mt.MonoTrackerConfig(
         capacity=args.capacity, cell_size=cell_size, min_score=min_score,

@@ -10,9 +10,9 @@ Capability parity (SURVEY.md §2 #7-9):
     (ref src/datasets/fourseasons_player.rs:179-216)
   * real-time pacing and step mode live in the player loop (cli/run.py)
 
-TPU-first design: the reference decodes PNGs synchronously inside the frame
-loop (its I/O hot spot, SURVEY.md §3.1); here a background thread decodes and
-stages frames ahead of the device so host I/O overlaps device compute.
+Design: the reference decodes PNGs synchronously inside the frame loop (its
+I/O hot spot, SURVEY.md §3.1); here a background thread decodes and stages
+frames ahead of the device so host I/O overlaps device compute.
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ from dataclasses import dataclass
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
+
+from .png import read_png
 
 
 @dataclass
@@ -44,10 +46,16 @@ class ImuSample:
 
 
 def _load_gray(path: str) -> np.ndarray:
-    import cv2
-    img = cv2.imread(path, cv2.IMREAD_GRAYSCALE)
-    if img is None:
-        raise FileNotFoundError(path)
+    """Grayscale frame as float32 on the 8-bit intensity scale, converted as
+    the native loader does: a 16-bit image keeps its high byte and RGB(A)
+    takes the integer BT.601 luma."""
+    img = read_png(path)
+    if img.dtype == np.uint16:
+        img = img >> 8
+    img = img.astype(np.int32)
+    if img.ndim == 3:
+        img = (299 * img[..., 0] + 587 * img[..., 1]
+               + 114 * img[..., 2]) // 1000
     return img.astype(np.float32)
 
 

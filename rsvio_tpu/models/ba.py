@@ -8,18 +8,18 @@ Huber δ=2.0, ≤20 LM iterations, stereo-observability gating (a landmark must
 be seen at least once in BOTH cameras across the window), under-constrained
 refusal, rollback-on-failure semantics, and a Schur → plain-solve fallback.
 
-TPU-first re-design (NOT a translation of apex-solver):
+Design (a re-design, not a translation of apex-solver):
   * No factor graph. The observation set is a dense masked tensor
     obs[(W, 2, L, 2)] + mask[(W, 2, L)]; linearization of every observation is
     ONE vmapped call producing whitened residuals and Jacobians.
-  * Normal-equation blocks are einsums (MXU work):
+  * Normal-equation blocks are einsums:
       H_pp (W,6,6) block-diagonal, H_ll (L,3,3), H_pl (W,L,6,3), gradients.
   * Schur: 3x3 landmark blocks inverted in closed form (batched), reduced
     camera system S ((W·6) x (W·6)) assembled with one einsum and solved by
     Cholesky; landmark updates back-substituted. The whole reduction mirrors
     the reference's SparseSchurComplement + BlockDiagonal preconditioner
-    configuration (ref sliding_window.rs:126-135) but as dense blocked MXU ops
-    — at W=10, L≤1024 the "sparse" problem is a small dense one on TPU.
+    configuration (ref sliding_window.rs:126-135) but as dense blocked ops
+    — at W=10, L≤1024 the "sparse" problem is a small dense one.
   * LM accept/reject + rollback is branchless lax.while_loop state; the
     reference's Cholesky fallback on a singular Schur solve (ref :328-354)
     maps to detecting a non-finite step and retrying with boosted damping,
@@ -135,7 +135,7 @@ def step_quality(cost, new_cost, pred_red):
 
 
 def lm_status(cost_conv, param_conv, lam_overflow):
-    """Shared LM convergence-status selection (same taxonomy in every
+    """Shared LM convergence-status selection (same status codes in every
     solver: PnP, BA, marginalized BA, VIO BA, distributed BA).
 
     lam_overflow (damping past lambda_max, all steps rejected) is a SUCCESS
@@ -621,7 +621,7 @@ def solve_ba_marginalized(T_W_B, T_C_B, landmarks, obs, obs_mask, lm_valid,
      _n) = jax.lax.while_loop(cond, body, init)
 
     status = jnp.where(attempt, status, STATUS_SKIPPED)
-    # Success taxonomy as solve_ba, incl. the numerical-health gate.
+    # Success statuses as solve_ba, incl. the numerical-health gate.
     finite = (jnp.all(jnp.isfinite(T_B_W))
               & jnp.all(jnp.isfinite(jnp.where(lm_active_f[:, None], lms,
                                                0.0))))

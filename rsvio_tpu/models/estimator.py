@@ -13,7 +13,7 @@ src/estimator/estimator.rs:101-259 and #15 SlidingWindow):
     sliding_window.rs:258), bundle adjustment, rollback on failure
   * PnP failure tolerated: pose left unchanged (ref estimator.rs:228-234)
 
-TPU-first design: the whole step is ONE jitted function over fixed-shape
+Design: the whole step is ONE jitted function over fixed-shape
 arrays. The keyframe branch runs under lax.cond so BA cost is only paid on
 keyframes. Landmarks are slot-aligned with the feature table; feature-id tags
 guard against slot recycling inside the window.

@@ -10,7 +10,7 @@ src/feature_tracker/feature_tracker.rs:116-207):
   (d) stereo-match the new corners cam0->cur cam1 by the same KLT
   (e) keep only stereo-matched births, assign shared incremental feature ids
 
-TPU-first re-design: the reference's per-camera HashMap<feature_id, Affine2>
+Design: the reference's per-camera HashMap<feature_id, Affine2>
 track states become a fixed-capacity struct-of-arrays FeatureTable with an
 alive mask; births compact into free slots with a cumsum ranking — no dynamic
 shapes, so the whole frame step compiles once. Landmark storage elsewhere is
@@ -193,8 +193,7 @@ def frontend_step(table: FeatureTable, pyr0_prev, pyr1_prev, pyr0, pyr1,
         pos0, A0 = table.pos0, table.A0
         pos1, A1 = table.pos1, table.A1
     else:
-        # One camera-batched call covers both temporal passes (on the Pallas
-        # backend this is half the kernel launches of two separate calls).
+        # Both cameras' temporal passes through one tracker entry point.
         pos0, A0, ok0, pos1, A1, ok1 = klt.track_points_bidirectional_stereo(
             pyr0_prev, pyr1_prev, pyr0, pyr1, table.pos0, table.pos1,
             table.alive, kcfg)

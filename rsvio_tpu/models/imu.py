@@ -7,7 +7,7 @@ placeholder structures — ImuData (ref src/datasets/mod.rs:21-26), per-frame
 IMU vectors (ref src/estimator/frame.rs:33-37) and velocity/bias slots in
 State (ref src/estimator/state.rs:12-19) that nothing consumes. This module
 implements the standard preintegration theory (Forster et al., on-manifold
-preintegration) in a TPU-friendly form:
+preintegration) in an accelerator-friendly form:
 
   * fixed-capacity sample buffers with validity masks (static shapes),
   * lax.scan over samples — the only inherently sequential axis — while

@@ -6,7 +6,7 @@ pose against the fixed map points observed in the current frame, Huber δ=2.0,
 ≤10 LM iterations, returning the optimized pose and a success flag (the caller
 leaves the pose unchanged on failure, ref estimator.rs:228-234).
 
-TPU-first design: the reference builds an apex-solver Problem with one factor
+Design: the reference builds an apex-solver Problem with one factor
 per observation and a sparse Cholesky; here the entire solve is one jitted
 function — residuals/Jacobians for ALL (camera × landmark) observations are
 one vmapped linearization, the 6x6 normal equations are formed with two small
@@ -27,7 +27,7 @@ from ..ops.projection import linearize_projection
 from . import ba as ba_mod
 from .ba import lm_status as ba_lm_status
 
-# Convergence-status taxonomy (parity with the reference's success statuses,
+# Convergence-status codes (parity with the reference's success statuses,
 # ref sliding_window.rs:383-462: any of Converged/CostTol/ParamTol/
 # TrustRegionTooSmall/MaxIterations counts as success).
 STATUS_MAX_ITERATIONS = 0
@@ -253,11 +253,11 @@ def ransac_pnp_gate(T_W_B_init, T_C_B, landmarks, obs, mask, key,
     consensus vote over pose hypotheses separates the groups: only one rigid
     motion can win, and with the static set in the majority it is the world.
 
-    TPU-first design: the classic sequential hypothesize-and-verify loop
+    Design: the classic sequential hypothesize-and-verify loop
     becomes one batched computation — K minimal samples drawn in parallel
     (Gumbel-top-S over the valid-observation mask gives S distinct valid
     indices per hypothesis without host RNG), K damped-GN pose solves as one
-    vmap (each is a 6x6 dense solve — MXU-trivial), and the K x (2L)
+    vmap (each is a 6x6 dense solve), and the K x (2L)
     verification residuals as one vmapped projection sweep. argmax picks the
     winner; the caller runs the full LM polish on its consensus set
     (LO-RANSAC structure). No dynamic shapes, no data-dependent trip counts.

@@ -15,7 +15,7 @@ Design:
     from jax.jacfwd of the preintegration residual — exact, batched, and
     immune to hand-derivation bugs (15x30 per interval, negligible cost).
   * Landmarks are Schur-eliminated exactly as in models.ba; the reduced state
-    system is (W·15)^2 (W=10 -> 150x150 Cholesky, trivial on the MXU).
+    system is (W·15)^2 (W=10 -> 150x150 Cholesky).
   * Gauge: first pose (6 dims) fixed; its velocity/biases stay free.
 """
 
@@ -284,7 +284,7 @@ def solve_vio_ba(state: VIOState, T_C_B, landmarks, obs, obs_mask, lm_valid,
         Visual factors never touch velocity/bias, so the state-landmark
         coupling H_pl6 stays in 6-dim pose space: rows 6:15 of the (D,3)
         coupling blocks are structurally zero and the whole landmark
-        elimination runs in the pose subspace (6.25x fewer MXU FLOPs than
+        elimination runs in the pose subspace (6.25x fewer FLOPs than
         materializing (W,L,15,3) blocks)."""
         T_B_W = jax.vmap(lie.se3_inverse)(st.T_W_B)
         lin = _visual_linearize(T_B_W, T_C_B, lms, obs, mask, cfg.huber_delta)

@@ -1,5 +1,5 @@
 """Feature detection: whole-image FAST-9 and Shi-Tomasi scoring + grid-cell
-selection — fully vectorized XLA (VPU) ops, no per-corner loops.
+selection — fully vectorized XLA ops, no per-corner loops.
 
 Capability parity (SURVEY.md §2 #14, #23):
   * grid-based FAST-9 detection keeping at most `max_per_cell` corners per cell
@@ -10,7 +10,7 @@ Capability parity (SURVEY.md §2 #14, #23):
     min-distance suppression against existing features
     (ref feature_tracker/src/feature_tracker/feature_detection.rs:83-254)
 
-TPU-first design: the reference runs imageproc's per-cell FAST with a
+Design: the reference runs imageproc's per-cell FAST with a
 threshold cascade; here the FAST margin-score of EVERY pixel is computed in
 one shot (16 circularly-shifted comparisons + unrolled run-of-9 min/max — all
 elementwise (H, W) ops), then each grid cell picks its argmax. The threshold
@@ -215,7 +215,7 @@ def nms_select(score, occupied_xy, occupied_mask, radius: int,
         corners, so every new detection keeps at least `radius` px distance
         from every live track
 
-    TPU-first design: the per-block scan of the reference becomes ONE
+    Design: the per-block scan of the reference becomes ONE
     lax.reduce_window max-pool over a (2r+1)² window; peaks are pixels equal
     to their pooled max. Injected +inf scores at live track positions
     suppress any candidate within the radius. Survivors are ranked by score

@@ -5,7 +5,7 @@ Capability parity (SURVEY.md §2): bilinear sample + central-difference gradient
 src/feature_tracker/patch.rs:163-232) and Catmull-Rom bicubic with analytic
 derivatives (ref feature_tracker/src/image_operations.rs:140-282).
 
-TPU-first design: images are (H, W) float arrays in HBM; sampling N points is a
+Design: images are (H, W) float arrays in device memory; sampling N points is a
 batched gather expressed with plain advanced indexing so XLA lowers it to a
 single gather op — callers vmap over points, never loop. All samplers return an
 in-bounds validity mask instead of clamping silently.

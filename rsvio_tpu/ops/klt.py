@@ -6,11 +6,11 @@ with an SE2 inverse-compositional Gauss-Newton solve over a mean-normalized
 pyramid, with a bidirectional consistency gate
 (ref src/feature_tracker/feature_tracker.rs:252-395, src/feature_tracker/patch.rs).
 
-TPU-first re-design (NOT a translation):
+Design (a re-design, not a translation):
   * The patch is a dense 8x8 grid (64 points, spacing 2 px → ±7 px footprint,
     same coverage class as the reference's 52-point circular pattern) — a
-    lane-aligned power-of-two layout the VPU vectorizes cleanly, in the spirit
-    of the reference's own DensePatch experiment
+    fixed power-of-two layout that vectorizes cleanly, in the spirit of the
+    reference's own DensePatch experiment
     (ref feature_tracker/src/patch.rs:219-229 row-span layout).
   * The reference parallelizes with rayon par_iter over points; here the WHOLE
     feature table is one batched computation: vmap over N features, lax.fori_loop
@@ -65,15 +65,9 @@ class KLTConfig(NamedTuple):
     levels: int = 6                   # ref estimator.rs:27 StereoPatchTracker<6>
     bidir_threshold_sq: float = 0.4   # px^2, ref feature_tracker.rs:280
     bounds_margin: float = 2.0        # ref feature_tracker.rs:389
-    # Backend: "auto" = Pallas kernel on TPU, XLA elsewhere;
-    # "pallas" = TPU kernel (interpret mode off-TPU);
-    # "xla" = SE2 gather-based path (arbitrary-angle rotation, any backend).
-    backend: str = "auto"
-    # Warp model, BOTH backends. False (default) = 2-dof translation;
-    # True = 3-dof SE2 with an exact bilinear rotation warp like the
-    # reference's Pattern52 (the Pallas kernel samples exactly at the rotated
-    # positions up to its |theta| < 0.346 rad total-angle gate; the XLA path
-    # is unbounded).
+    # Warp model. False (default) = 2-dof translation; True = 3-dof SE2
+    # with an exact bilinear rotation warp like the reference's Pattern52
+    # (arbitrary angle).
     # The 2-dof default is an accuracy decision, not just a speed one: on
     # fine-grained/weak texture the SE2 Hessian's rotation column is poorly
     # conditioned and the 3x3 IC solve smears error into translation
@@ -81,7 +75,7 @@ class KLTConfig(NamedTuple):
     # kill rate vs 0.017 px / ~0% for the 2-dof solve on the same scene;
     # per-frame patch rotation is sub-degree on the target datasets).
     track_rotation: bool = False
-    # Residual model, BOTH backends (parity with the reference experimental
+    # Residual model (parity with the reference experimental
     # crate's Patch SSD / locally-scaled-SSD options, ref
     # feature_tracker/src/patch.rs:57-105):
     #   "lssd": mean-normalized intensities (brightness/gain invariant —
@@ -89,7 +83,7 @@ class KLTConfig(NamedTuple):
     #   "ssd":  raw intensity difference (plain SSD).
     residual_mode: str = "lssd"
     # Fixed Levenberg damping added to the precomputed IC-GN Hessian:
-    # inc = -(J^T J + lm_lambda I)^-1 J^T r, BOTH backends (parity with the
+    # inc = -(J^T J + lm_lambda I)^-1 J^T r (parity with the
     # experimental crate's precomputed (lambda I + J^T J)^-1 LM-KLT,
     # ref feature_tracker/src/patch.rs:239-255). 0 = pure Gauss-Newton.
     lm_lambda: float = 0.0
@@ -98,8 +92,7 @@ class KLTConfig(NamedTuple):
     # (Catmull-Rom with analytic gradients — the experimental crate tracks
     # WITH bicubic sampling, ref
     # feature_tracker/src/feature_tracker/feature_tracking.rs:129-192 calling
-    # d_interpolate_bicubic, image_operations.rs:140-229). Bicubic runs on
-    # the XLA gather path; backend "auto" routes there automatically.
+    # d_interpolate_bicubic, image_operations.rs:140-229).
     interpolation: str = "bilinear"
     # Coarse-level failure policy. "strict" (reference parity): any level
     # failing — including a BORDER feature whose coordinates shrink below
@@ -302,46 +295,6 @@ def _track_one_point(pyr_src, pyr_dst, pos_src, pos_dst0, A0, cfg: KLTConfig):
     return pos, A, ok
 
 
-def _theta_to_A(theta):
-    c, s = jnp.cos(theta), jnp.sin(theta)
-    return jnp.stack([jnp.stack([c, -s], axis=-1),
-                      jnp.stack([s, c], axis=-1)], axis=-2)
-
-
-def _track_points_pallas(pyr_src, pyr_dst, pos_src, pos_dst0, A0, alive,
-                         cfg: KLTConfig):
-    """Coarse-to-fine tracking via the Pallas level kernel (one pallas_call
-    per level; see ops.pallas.klt_kernel). Translation-only or SE2 with
-    small-angle rotation per cfg.track_rotation; the in-plane angle is
-    carried across levels (scale-free) and returned as a rotation matrix."""
-    from .pallas.klt_kernel import track_level
-
-    interpret = jax.default_backend() != "tpu"
-    levels = len(pyr_src)
-    pos = pos_dst0
-    ok = alive
-    if cfg.track_rotation:
-        theta = jnp.arctan2(A0[:, 1, 0], A0[:, 0, 0])
-    else:
-        theta = jnp.zeros(pos_src.shape[0], pos_src.dtype)
-    for lvl in reversed(range(levels)):
-        scale = jnp.asarray((1.0 / cfg.pyramid_ratio)**lvl,
-                            dtype=pos_src.dtype)
-        pos_lvl, theta_lvl, lvl_ok = track_level(
-            pyr_src[lvl], pyr_dst[lvl], pos_src / scale, pos / scale,
-            theta, alive, cfg.max_iterations,
-            cfg.convergence_threshold**2, cfg.track_rotation,
-            cfg.residual_mode, cfg.lm_lambda, interpret)
-        pos = jnp.where(lvl_ok[:, None], pos_lvl * scale, pos)
-        theta = jnp.where(lvl_ok, theta_lvl, theta)
-        if cfg.coarse_level_policy == "tolerant":
-            ok = ok & (lvl_ok | (lvl > 0))
-        else:
-            ok = ok & lvl_ok
-    pos = jnp.where(ok[:, None], pos, pos_src)
-    return pos, _theta_to_A(theta), ok
-
-
 @partial(jax.jit, static_argnames=("cfg",))
 def track_points(pyr_src, pyr_dst, pos_src, pos_dst0, A0, alive, cfg: KLTConfig):
     """Track all features pyr_src -> pyr_dst. Batched over the feature table.
@@ -354,31 +307,11 @@ def track_points(pyr_src, pyr_dst, pos_src, pos_dst0, A0, alive, cfg: KLTConfig)
       alive: (N,) bool — dead slots are skipped (stay dead).
     Returns: (pos_dst (N,2), A (N,2,2), ok (N,)).
     """
-    if _resolve_backend(cfg) == "pallas":
-        return _track_points_pallas(pyr_src, pyr_dst, pos_src, pos_dst0,
-                                    A0, alive, cfg)
     f = jax.vmap(_track_one_point, in_axes=(None, None, 0, 0, 0, None))
     pos, A, ok = f(pyr_src, pyr_dst, pos_src, pos_dst0, A0, cfg)
     ok = ok & alive
     pos = jnp.where(ok[:, None], pos, pos_src)
     return pos, A, ok
-
-
-def _bidir_fused_pallas(pyr_src, pyr_dst, pos_src, alive, cfg: KLTConfig,
-                        cam=None):
-    """Single-launch bidirectional pass (all levels + both directions + the
-    return gate fused into one pallas_call — see
-    ops.pallas.klt_kernel.track_bidirectional_pyramid)."""
-    from .pallas.klt_kernel import track_bidirectional_pyramid
-
-    interpret = jax.default_backend() != "tpu"
-    pos, theta, ok = track_bidirectional_pyramid(
-        pyr_src, pyr_dst, pos_src, alive,
-        cfg.max_iterations, cfg.convergence_threshold**2,
-        cfg.bidir_threshold_sq, cfg.track_rotation, cfg.residual_mode,
-        cfg.lm_lambda, cfg.pyramid_ratio, interpret, cam=cam,
-        coarse_tolerant=cfg.coarse_level_policy == "tolerant")
-    return pos, _theta_to_A(theta), ok
 
 
 @partial(jax.jit, static_argnames=("cfg",))
@@ -388,12 +321,7 @@ def track_points_bidirectional(pyr_src, pyr_dst, pos_src, alive, cfg: KLTConfig)
     Capability of ref src/feature_tracker/feature_tracker.rs:252-291: accept a
     track only if the backward track returns within sqrt(0.4) px of the start.
     Returns (pos_dst (N,2), A (N,2,2), ok (N,)).
-
-    On the Pallas backend the whole pass (all levels, forward + backward,
-    gate) is ONE kernel launch; the XLA path composes per-level tracking.
     """
-    if _resolve_backend(cfg) == "pallas":
-        return _bidir_fused_pallas(pyr_src, pyr_dst, pos_src, alive, cfg)
     N = pos_src.shape[0]
     eye = jnp.broadcast_to(jnp.eye(2, dtype=pos_src.dtype), (N, 2, 2))
     pos_fwd, A_fwd, ok_fwd = track_points(
@@ -409,58 +337,20 @@ def track_points_bidirectional(pyr_src, pyr_dst, pos_src, alive, cfg: KLTConfig)
     return pos_fwd, A_fwd, ok
 
 
-def resolve_backend(cfg: KLTConfig) -> str:
-    """The backend a KLTConfig will actually run on for the current device
-    ("pallas" or "xla"). Every tracker configuration (lssd/ssd residuals,
-    fixed-lambda LM damping, SE2 rotation) runs on the kernel — nothing
-    silently falls back to the slow XLA gather path on TPU, EXCEPT bicubic
-    sampling, which only the gather path implements (requesting it with an
-    explicit "pallas" backend is an error rather than a silent downgrade)."""
-    if cfg.interpolation == "bicubic":
-        if cfg.backend == "pallas":
-            raise ValueError(
-                "bicubic interpolation is not implemented in the Pallas "
-                "kernel; use backend='xla' (or 'auto', which routes there)")
-        return "xla"
-    if cfg.backend != "auto":
-        return cfg.backend
-    return "pallas" if jax.default_backend() == "tpu" else "xla"
-
-
-_resolve_backend = resolve_backend
-
-
 @partial(jax.jit, static_argnames=("cfg",))
 def track_points_bidirectional_stereo(pyr0_src, pyr1_src, pyr0_dst, pyr1_dst,
                                       pos0, pos1, alive, cfg: KLTConfig):
     """Temporal bidirectional tracking of BOTH cameras of a stereo rig.
 
-    Semantically identical to two track_points_bidirectional calls (cam0
-    prev->cur on pos0, cam1 prev->cur on pos1 — the reference's two temporal
-    passes, ref feature_tracker.rs:125-138), but on the Pallas backend the
-    two cameras' features are CONCATENATED into one batch, the level images
-    stacked on a leading camera axis, and each (level, direction) runs as a
-    single kernel launch — halving tracker launches per frame. The per-frame
-    step is launch-bound at these sizes, so fewer, larger kernels is the
-    single-chip lever (see docs/NOTES.md solver-loop findings).
+    Exactly two track_points_bidirectional calls: cam0 prev->cur on pos0
+    and cam1 prev->cur on pos1 (the reference's two temporal passes, ref
+    feature_tracker.rs:125-138), kept as one entry point so the frontend
+    has a single place where both cameras' temporal passes could be batched.
 
     Returns (pos0, A0, ok0, pos1, A1, ok1).
     """
-    if _resolve_backend(cfg) != "pallas":
-        pos0o, A0o, ok0 = track_points_bidirectional(
-            pyr0_src, pyr0_dst, pos0, alive, cfg)
-        pos1o, A1o, ok1 = track_points_bidirectional(
-            pyr1_src, pyr1_dst, pos1, alive, cfg)
-        return pos0o, A0o, ok0, pos1o, A1o, ok1
-
-    N = pos0.shape[0]
-    pyr_src = tuple(jnp.stack([a, b]) for a, b in zip(pyr0_src, pyr1_src))
-    pyr_dst = tuple(jnp.stack([a, b]) for a, b in zip(pyr0_dst, pyr1_dst))
-    cam = jnp.concatenate([jnp.zeros((N,), jnp.int32),
-                           jnp.ones((N,), jnp.int32)])
-    pos_src = jnp.concatenate([pos0, pos1], axis=0)
-    alive2 = jnp.concatenate([alive, alive])
-    pos_fwd, A_fwd, ok = _bidir_fused_pallas(
-        pyr_src, pyr_dst, pos_src, alive2, cfg, cam=cam)
-    return (pos_fwd[:N], A_fwd[:N], ok[:N],
-            pos_fwd[N:], A_fwd[N:], ok[N:])
+    pos0o, A0o, ok0 = track_points_bidirectional(
+        pyr0_src, pyr0_dst, pos0, alive, cfg)
+    pos1o, A1o, ok1 = track_points_bidirectional(
+        pyr1_src, pyr1_dst, pos1, alive, cfg)
+    return pos0o, A0o, ok0, pos1o, A1o, ok1

@@ -5,13 +5,13 @@ Capability parity targets (reference, see SURVEY.md §2):
   - SE3 pose packing/retraction used by the solver (ref src/estimator/sliding_window.rs:217-226)
   - quaternion <-> rotation-matrix conversion (ref src/viewers/rerun.rs:414-445)
 
-Design notes (TPU-first):
+Design notes:
   * Every function is shape-polymorphic over leading batch dims only via vmap —
     bodies are written for single elements with fixed small shapes so XLA sees
     static shapes and fuses everything.
   * Small-angle branches are implemented branchlessly with jnp.where on safe
     operands (no lax.cond), so vmap/batching never serializes.
-  * dtype follows the inputs (f32 on TPU by default; tests may use f64 on CPU).
+  * dtype follows the inputs (f32 by default; tests may use f64 on CPU).
 """
 
 from __future__ import annotations

@@ -159,7 +159,7 @@ def refine_landmarks(T_C_B, T_B_W, landmarks, obs, mask,
     Capability of the reference's PinholeProjectionFactor — a landmark
     optimized against >=2 fixed cameras (ref src/optimization/factors.rs:
     27-133, exercised in tests.rs:16-127 as triangulation-style recovery).
-    TPU-first: each landmark's normal equations are a closed-form damped 3x3
+    Design: each landmark's normal equations are a closed-form damped 3x3
     solve; the whole table refines as ONE vmapped fori_loop (no factor
     graph, no per-landmark host loop). Typical use: polish triangulated
     births with every window observation before they enter BA.

@@ -1,4 +1,4 @@
-"""Image pyramid construction — whole-image XLA ops (VPU-friendly).
+"""Image pyramid construction — whole-image XLA ops.
 
 Capability parity: the reference builds a 6-level power-of-2 pyramid with a
 Triangle (bilinear) filter, levels computed in parallel with rayon
@@ -6,9 +6,9 @@ Triangle (bilinear) filter, levels computed in parallel with rayon
 supports arbitrary-ratio pyramids with optional pre-blur
 (ref feature_tracker/src/image_operations.rs:47-78).
 
-TPU-first design: each /2 level is one fused XLA expression — a [1,2,1]⊗[1,2,1]
+Design: each /2 level is one fused XLA expression — a [1,2,1]⊗[1,2,1]
 separable triangle filter followed by stride-2 subsampling, implemented with
-pad+add (no conv needed, stays on the VPU). Levels are returned as a tuple of
+pad+add (no conv needed). Levels are returned as a tuple of
 static-shaped arrays; callers treat the tuple as a pytree so the whole pyramid
 lives on device.
 

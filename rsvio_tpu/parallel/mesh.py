@@ -1,8 +1,9 @@
-"""Device mesh construction for multi-chip/multi-host runs.
+"""Device mesh construction for multi-device/multi-host runs.
 
 Greenfield capability (SURVEY.md §2.4): the reference is single-process with
-no distributed backend; the TPU build adds a landmark-sharded BA over a device
-mesh with XLA collectives on ICI (BASELINE.json configs item 5).
+no distributed backend; this build adds a landmark-sharded BA over a 1-D
+device mesh with XLA collectives (NCCL over NVLink between GPUs;
+BASELINE.json configs item 5).
 """
 
 from __future__ import annotations

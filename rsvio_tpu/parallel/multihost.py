@@ -1,10 +1,10 @@
 """Multi-host setup helpers: process initialization + per-host data feeding.
 
 Greenfield capability (SURVEY.md §5 "Distributed communication backend" and
-§7 step 9): the reference is single-process. On a multi-host TPU slice each
+§7 step 9): the reference is single-process. On a multi-host GPU cluster each
 host process calls `initialize_distributed()` once; the global mesh then
 spans all hosts' devices and the landmark-sharded BA (parallel.dist_ba)
-reduces over ICI/DCN transparently through the same psum collectives.
+reduces across them transparently through the same psum collectives.
 
 Data feeding follows the standard JAX multi-host recipe: every process
 feeds only the shard of the global batch that lives on its local devices
@@ -39,8 +39,8 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
 
 
 def global_mesh() -> Mesh:
-    """1-D landmark mesh over ALL devices across hosts (ICI within a host,
-    DCN between hosts — XLA routes the psum accordingly)."""
+    """1-D landmark mesh over ALL devices across hosts (NVLink within a
+    host, the network between hosts — XLA routes the psum accordingly)."""
     return Mesh(np.asarray(jax.devices()), (LANDMARK_AXIS,))
 
 

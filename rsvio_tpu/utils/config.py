@@ -1,4 +1,4 @@
-"""YAML configuration system.
+"""Configuration system (YAML files, parsed by utils.miniyaml).
 
 Capability parity (SURVEY.md §2 #6 — ref src/datasets/config.rs): the same
 YAML schema as the reference configs (camera / keyframe_management /
@@ -15,7 +15,8 @@ import dataclasses
 from typing import List, Optional
 
 import numpy as np
-import yaml
+
+from . import miniyaml
 
 
 @dataclasses.dataclass
@@ -82,8 +83,8 @@ class TrackerConfig:
     # reference's single-winner cell semantics even when relaxed).
     relax_max_per_cell: int = 3
     # Track in-plane patch rotation (3-dof SE2 like the reference's Affine2
-    # track states, ref feature_tracker.rs:91-100; XLA backend = exact
-    # arbitrary-angle warp, Pallas kernel = first-order rotation warp).
+    # track states, ref feature_tracker.rs:91-100; exact arbitrary-angle
+    # warp).
     # Default off: the 2-dof translation solve is measurably MORE accurate
     # on weak/fine-grained texture (see ops.klt.KLTConfig.track_rotation).
     track_rotation: bool = False
@@ -93,17 +94,13 @@ class TrackerConfig:
     residual_mode: str = "lssd"
     # Fixed Levenberg damping on the KLT step (the experimental crate's
     # precomputed (lambda I + J^T J)^-1 LM-KLT, ref patch.rs:239-255);
-    # 0 = pure Gauss-Newton. Non-default values route to the XLA backend.
+    # 0 = pure Gauss-Newton.
     lm_lambda: float = 0.0
     # Patch sampling: "bilinear" (main tracker) or "bicubic" (Catmull-Rom
     # with analytic gradients — the experimental crate tracks with bicubic,
     # ref feature_tracker/src/feature_tracker/feature_tracking.rs:129-192,
-    # image_operations.rs:140-229). Bicubic routes to the XLA backend.
+    # image_operations.rs:140-229).
     interpolation: str = "bilinear"
-    # Tracking backend: "auto" (Pallas kernel on TPU, XLA elsewhere),
-    # "pallas" (kernel; interpret mode off-TPU), or "xla" (gather-based
-    # path — exact arbitrary-angle SE2 warp, any device).
-    backend: str = "auto"
     # Detection mode: "grid" = per-cell argmax with cell occupancy (main
     # crate, ref image_utilities.rs:108-175); "nms" = block NMS + min-dist
     # suppression vs live tracks (experimental crate,
@@ -243,8 +240,8 @@ class SolverConfig:
 @dataclasses.dataclass
 class Config:
     # Runtime analog of the reference's compile-time `use_f32` cargo feature
-    # (ref src/types.rs:17-23). The reference defaults to f64 on CPU; on TPU
-    # f32 is the native register width so it is the default here — set
+    # (ref src/types.rs:17-23). The reference defaults to f64 on CPU; on the
+    # GPU f32 runs at many times the f64 rate, so it is the default here — set
     # `precision: f64` in the YAML to run the whole pipeline in double
     # (enables jax x64 at startup).
     precision: str = "f32"
@@ -284,13 +281,12 @@ def _fill(cls, data: Optional[dict]):
 
 
 def load_yaml_stripped(path: str) -> dict:
-    """Parse a YAML file tolerating the OpenCV-style `%YAML:1.0` directive
+    """Parse a config file, skipping the OpenCV-style `%YAML:1.0` directive
     the reference configs carry (ref config.rs:71-88 strips those lines
-    before handing the text to serde)."""
+    before handing the text to serde). See utils.miniyaml for the subset of
+    YAML it reads."""
     with open(path) as f:
-        lines = [ln for ln in f.read().splitlines()
-                 if not ln.strip().startswith("%YAML")]
-    return yaml.safe_load("\n".join(lines)) or {}
+        return miniyaml.loads(f.read(), path)
 
 
 def load_config(path: str) -> Config:
@@ -363,7 +359,6 @@ def make_estimator_config(cfg: Config, kind: str = "vo"):
         residual_mode=cfg.tracker.residual_mode,
         lm_lambda=cfg.tracker.lm_lambda,
         interpolation=cfg.tracker.interpolation,
-        backend=cfg.tracker.backend,
         coarse_level_policy=cfg.tracker.coarse_level_policy,
     )
     fe_cfg = FrontendConfig(
@@ -442,3 +437,24 @@ def make_imu_params(cfg: Config):
         gyro_bias_walk=cfg.imu.gyroscope_random_walk,
         accel_bias_walk=cfg.imu.accelerometer_random_walk,
     )
+
+
+def make_vio_estimator_config(cfg: Config):
+    """Translate a Config into the static VIOEstimatorConfig + CameraRig
+    (the estimator config resolved for the "vio" kind)."""
+    from ..models import estimator_vio as ev
+    from ..models.vio_ba import VIOBAConfig
+
+    ecfg, rig = make_estimator_config(cfg, kind="vio")
+    s = cfg.solver
+    vcfg = ev.VIOEstimatorConfig(
+        base=ecfg, imu_params=make_imu_params(cfg),
+        vio=VIOBAConfig(huber_delta=s.huber_delta, cost_tol=s.cost_tol,
+                        param_tol=s.param_tol, chi2_gate=s.chi2_gate,
+                        chi2_gate_iter=s.chi2_gate_iter,
+                        bias_gyro_weight=s.bias_gyro_weight,
+                        bias_accel_weight=s.bias_accel_weight,
+                        bias_gyro_weight_desert=s.bias_gyro_weight_desert,
+                        bias_accel_weight_desert=s.bias_accel_weight_desert,
+                        min_lm_span=s.min_lm_span))
+    return vcfg, rig

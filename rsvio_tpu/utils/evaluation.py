@@ -51,6 +51,17 @@ def static_init_imu(traj: syn.Trajectory, seconds: float = 0.5,
     return gyro, accel
 
 
+def score_positions(positions: np.ndarray, gt: np.ndarray, skip: int):
+    """(ATE RMSE in m, drift in %) of the segment from frame `skip` on. ATE
+    is SE3-aligned; drift compares the segment's displacement length with
+    the ground truth's, over the ground-truth path length."""
+    rmse, _ = ate_rmse(positions[skip:], gt[skip:])
+    d_est = np.linalg.norm(positions[-1] - positions[skip])
+    d_gt = np.linalg.norm(gt[-1] - gt[skip])
+    path = np.sum(np.linalg.norm(np.diff(gt[skip:], axis=0), axis=1))
+    return rmse, 100.0 * abs(d_est - d_gt) / max(path, 1e-9)
+
+
 def run_synthetic_sequence(seq: dict, scene: syn.SceneConfig, *,
                            use_vio: bool = False,
                            use_marginalization: bool = False,
@@ -71,8 +82,7 @@ def run_synthetic_sequence(seq: dict, scene: syn.SceneConfig, *,
                            bias_gyro_weight_desert: float = 0.0,
                            bias_accel_weight_desert: float = 0.0,
                            use_obs_weights: bool = True,
-                           coarse_level_policy: str = None,
-                           backend: str = "auto") -> RunResult:
+                           coarse_level_policy: str = None) -> RunResult:
     """Drive the (V)IO estimator over a generate_sequence() output.
 
     For VIO, pass init_gyro/init_accel (e.g. static_init_imu) to engage the
@@ -112,7 +122,6 @@ def run_synthetic_sequence(seq: dict, scene: syn.SceneConfig, *,
             relaxed_min_score=float(
                 os.environ.get("RSVIO_RELAX_SCORE", "1.0")),
             klt=KLTConfig(levels=levels, max_iterations=max_iterations,
-                          backend=backend,
                           **({} if coarse_level_policy is None else
                              dict(coarse_level_policy=coarse_level_policy)))),
         window_size=window,
@@ -244,13 +253,7 @@ def run_synthetic_sequence(seq: dict, scene: syn.SceneConfig, *,
     fill = int(np.nonzero(np.cumsum(is_kf) >= window)[0][0]) + 1 \
         if is_kf.sum() >= window else n // 3
     skip = min(fill, n - 5)
-    rmse, _ = ate_rmse(positions[skip:], gt[skip:])
-    # Displacement drift: compare segment displacement lengths against the
-    # ground-truth path length of the scored segment.
-    d_est = np.linalg.norm(positions[-1] - positions[skip])
-    d_gt = np.linalg.norm(gt[-1] - gt[skip])
-    path = np.sum(np.linalg.norm(np.diff(gt[skip:], axis=0), axis=1))
-    drift = 100.0 * abs(d_est - d_gt) / max(path, 1e-9)
+    rmse, drift = score_positions(positions, gt, skip)
     kf_frames = is_kf[skip:]
     return RunResult(
         positions=positions, gt_positions=gt, ate_rmse=rmse,

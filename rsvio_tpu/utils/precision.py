@@ -1,16 +1,16 @@
-"""Matmul-precision setup for TPU runs.
+"""Matmul-precision setup: full float32 matmuls, no TF32.
 
-TPU matmuls truncate f32 inputs to bfloat16 by default. The estimator's
-numerics — triangulation back-substitution, J^T J normal equations, Lie
-retraction chains — lose enough precision under that default to corrupt the
-solution (measured on a v5e chip: the synthetic e2e drifts 32% of traveled
-distance with default-precision matmuls, 5% with fp32 matmuls; CPU f32 runs
-of the identical code are exact to 0.0%). Every matmul in this pipeline is
-tiny and latency-bound, so full-precision accumulation costs nothing
-measurable.
+At JAX's default precision the GPU may run float32 matmuls and convolutions
+on the tensor cores in TF32, which keeps 10 bits of mantissa. The
+estimator's numerics — triangulation back-substitution, J^T J normal
+equations, Lie retraction chains — lose enough precision at reduced matmul
+precision to corrupt the solution (with bf16-rounded matmul inputs the
+synthetic e2e drifted 32% of traveled distance; float32 is exact). Every
+matmul in this pipeline is tiny and latency-bound, so full precision costs
+little.
 
 This lives in a function (called by every entry point: CLI, bench, examples,
-tools, the graft entry) instead of a package-import side effect so that
+tools, chip_smoke.py) instead of a package-import side effect so that
 merely importing rsvio_tpu as a library never mutates process-global JAX
 configuration for the embedding application.
 """

@@ -20,7 +20,7 @@ import os
 
 import numpy as np
 
-from .base import Viewer, get_feature_color
+from .base import Viewer, get_feature_color, require_cv2
 
 
 def _sanitize(path: str) -> str:
@@ -36,6 +36,7 @@ class ArtifactViewer(Viewer):
         self._frame = 0
         self._n_images = 0
         self._poses = {}
+        require_cv2("ArtifactViewer (--viewer-dir)")
         os.makedirs(os.path.join(out_dir, "frames"), exist_ok=True)
 
     def initialize(self) -> bool:

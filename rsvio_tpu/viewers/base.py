@@ -96,3 +96,17 @@ def create_viewer(enabled: bool = True, artifact_dir: str = None) -> Viewer:
     except Exception:
         pass
     return NullViewer()
+
+
+def require_cv2(what: str):
+    """OpenCV, which the debug image outputs use; it is optional for the
+    rest of the system, so asking for those outputs without it fails here
+    with a clear message."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(
+            f"{what} draws images with OpenCV (cv2), which is not "
+            "installed; install opencv-python or turn this output off"
+        ) from e
+    return cv2

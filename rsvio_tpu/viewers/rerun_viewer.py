@@ -27,7 +27,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from .base import Viewer, get_feature_color
+from .base import Viewer, get_feature_color, require_cv2
 
 log = logging.getLogger(__name__)
 
@@ -156,8 +156,8 @@ class RerunViewer(Viewer):
     def log_image_equalized(self, path: str, img: np.ndarray) -> None:
         if not self._guard():
             return
+        cv2 = require_cv2("RerunViewer.log_image_equalized")
         try:
-            import cv2
             u8 = cv2.equalizeHist(np.clip(img, 0, 255).astype(np.uint8))
             self._rr.log(path, self._rr.Image(u8).compress(jpeg_quality=75))
         except Exception as e:

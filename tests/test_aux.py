@@ -83,7 +83,7 @@ class TestMonoTracker:
                               borderMode=cv2.BORDER_REFLECT)
         cfg = mt.MonoTrackerConfig(
             capacity=64, cell_size=24, detect_margin=10,
-            klt=klt.KLTConfig(levels=3, backend="xla"))
+            klt=klt.KLTConfig(levels=3))
         p0 = pyramid.build_pyramid(jnp.asarray(img0), 3)
         p1 = pyramid.build_pyramid(jnp.asarray(img1), 3)
         table = mt.init_mono_table(64)

@@ -66,7 +66,6 @@ keyframe_management:
   keyframe_window_size: 5
   track_before_full: false
 tracker:
-  backend: xla
   track_rotation: true
   lm_lambda: 0.25
 solver:
@@ -79,7 +78,6 @@ solver:
     assert ecfg.track_before_full is False
     assert ecfg.use_marginalization is True
     assert ecfg.cull_reproj_threshold == pytest.approx(0.1)
-    assert ecfg.frontend.klt.backend == "xla"
     assert ecfg.frontend.klt.track_rotation is True
     assert ecfg.frontend.klt.lm_lambda == pytest.approx(0.25)
 

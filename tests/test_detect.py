@@ -169,7 +169,7 @@ class TestNMSSelect:
         img = jnp.asarray(rng.uniform(0, 255, (96, 128)).astype(np.float32))
         cfg = FrontendConfig(capacity=64, detect_mode="nms", nms_radius=6,
                              nms_max_new=32, detect_margin=8, min_score=5.0,
-                             klt=KLTConfig(levels=2, backend="xla"))
+                             klt=KLTConfig(levels=2))
         pyr = pyramid.build_pyramid(img, 2)
         table = init_table(64)
         table, stats = frontend_step(table, pyr, pyr, pyr, pyr, cfg)
@@ -218,7 +218,7 @@ class TestMultiCandidateCells:
         p1 = pyr_mod.build_pyramid(jnp.asarray(img1), 3)
         base = frontend.FrontendConfig(
             capacity=64, cell_size=24, detect_margin=6, min_score=5.0,
-            klt=KLTConfig(levels=3, backend="xla"))
+            klt=KLTConfig(levels=3))
         counts = {}
         for name, cfg in (("strict", base),
                           ("relaxed", base._replace(relax_floor_below=32,

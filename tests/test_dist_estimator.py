@@ -29,8 +29,7 @@ def _cfg(use_marg: bool) -> est.EstimatorConfig:
     return est.EstimatorConfig(
         frontend=FrontendConfig(capacity=96, cell_size=28, detect_margin=10,
                                 min_score=5.0,
-                                klt=KLTConfig(levels=3, max_iterations=12,
-                                              backend="xla")),
+                                klt=KLTConfig(levels=3, max_iterations=12)),
         window_size=4, translation_threshold=0.012,
         rotation_threshold=0.05, image_shape=(H, W),
         use_marginalization=use_marg)

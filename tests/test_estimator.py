@@ -50,8 +50,7 @@ def run_sequence(sequence, use_marg: bool, cull: float = 0.0,
     cfg = est.EstimatorConfig(
         frontend=FrontendConfig(capacity=96, cell_size=28, detect_margin=10,
                                 min_score=5.0,
-                                klt=KLTConfig(levels=3, max_iterations=12,
-                                              backend="xla")),
+                                klt=KLTConfig(levels=3, max_iterations=12)),
         window_size=4,
         translation_threshold=0.012,
         rotation_threshold=0.05,
@@ -167,8 +166,7 @@ class TestSplitStepParity:
         cfg = est.EstimatorConfig(
             frontend=FrontendConfig(capacity=96, cell_size=28,
                                     detect_margin=10, min_score=5.0,
-                                    klt=KLTConfig(levels=3, max_iterations=12,
-                                                  backend="xla")),
+                                    klt=KLTConfig(levels=3, max_iterations=12)),
             window_size=4, translation_threshold=0.012,
             rotation_threshold=0.05, image_shape=(H, W))
         fused = est.make_estimator_step(cfg)
@@ -200,8 +198,7 @@ def test_refine_births_runs_and_stays_accurate(sequence):
         cfg = est.EstimatorConfig(
             frontend=FrontendConfig(capacity=96, cell_size=28,
                                     detect_margin=10, min_score=5.0,
-                                    klt=KLTConfig(levels=3, max_iterations=12,
-                                                  backend="xla")),
+                                    klt=KLTConfig(levels=3, max_iterations=12)),
             window_size=4, translation_threshold=0.012,
             rotation_threshold=0.05, image_shape=(H, W),
             refine_births=refine)
@@ -327,8 +324,7 @@ class TestSceneFlowGate:
         cfg = est.EstimatorConfig(
             frontend=FrontendConfig(capacity=96, cell_size=28,
                                     detect_margin=10, min_score=5.0,
-                                    klt=KLTConfig(levels=3, max_iterations=12,
-                                                  backend="xla")),
+                                    klt=KLTConfig(levels=3, max_iterations=12)),
             window_size=4, translation_threshold=0.012,
             rotation_threshold=0.05, image_shape=(H, W),
             dynamic_flow_thresh=0.02)

@@ -25,7 +25,7 @@ def shift(img, dx, dy):
                           flags=cv2.INTER_LINEAR, borderMode=cv2.BORDER_REFLECT)
 
 
-CFG = KLTConfig(levels=3, max_iterations=20, backend="xla")
+CFG = KLTConfig(levels=3, max_iterations=20)
 
 
 def run_bidir(img_a, img_b, pts, cfg=CFG):
@@ -50,18 +50,6 @@ class TestPhotometricInvariance:
         flow = pos[ok] - pts[ok]
         err = np.abs(flow - [1.3, -0.8])
         assert np.median(err) < 0.25, err
-
-    def test_gain_change_survives_pallas_kernel(self):
-        """Same property through the Pallas kernel path (interpret mode)."""
-        cfg = KLTConfig(levels=3, max_iterations=20, backend="pallas")
-        img = textured(seed=2)
-        img2 = np.clip(shift(img, -0.9, 1.1) * 0.7, 0, 255)
-        pts = np.random.default_rng(1).uniform(
-            [15, 15], [145, 105], (12, 2)).astype(np.float32)
-        pos, ok = run_bidir(img, img2, pts, cfg)
-        assert ok.sum() >= 9, ok.sum()
-        flow = pos[ok] - pts[ok]
-        assert np.median(np.abs(flow - [-0.9, 1.1])) < 0.25
 
     def test_noise_tolerance(self):
         """Moderate sensor noise degrades but does not wipe out tracking."""

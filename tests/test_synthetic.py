@@ -6,6 +6,7 @@ model the whole VIO accuracy matrix rests on)."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from rsvio_tpu.data import synthetic as syn
 from rsvio_tpu.models import imu as imu_mod
@@ -144,3 +145,31 @@ class TestSequence:
         # 5 frames at 20 Hz starting one interval early: ~50 samples at 200 Hz
         assert 45 <= len(seq["imu_ts"]) <= 55
         assert (seq["imu_dts"] > 0).all()
+
+
+class TestNumpyImageOps:
+    """The scene generator's numpy resize/remap reproduce OpenCV's
+    INTER_CUBIC resize and INTER_LINEAR remap (within 1e-4 on 0-255
+    images), so the scenes the tests use keep their class without cv2."""
+
+    @pytest.mark.parametrize("src,dst", [((24, 24), (1024, 1024)),
+                                         ((40, 50), (160, 96))])
+    def test_resize_cubic_matches_cv2(self, src, dst):
+        cv2 = pytest.importorskip("cv2")
+        img = np.random.default_rng(0).uniform(0, 255, src).astype(np.float32)
+        ref = cv2.resize(img, dst, interpolation=cv2.INTER_CUBIC)
+        got = syn.resize_cubic(img, *dst)
+        assert got.shape == ref.shape
+        assert np.abs(got - ref).max() < 1e-4
+
+    @pytest.mark.parametrize("border", ["replicate", "reflect"])
+    def test_remap_linear_matches_cv2(self, border):
+        cv2 = pytest.importorskip("cv2")
+        rng = np.random.default_rng(1)
+        tex = syn.make_texture(256, seed=2)
+        mx = rng.uniform(-20, 275, (60, 80)).astype(np.float32)
+        my = rng.uniform(-20, 275, (60, 80)).astype(np.float32)
+        mode = {"replicate": cv2.BORDER_REPLICATE,
+                "reflect": cv2.BORDER_REFLECT}[border]
+        ref = cv2.remap(tex, mx, my, cv2.INTER_LINEAR, borderMode=mode)
+        assert np.abs(syn.remap_linear(tex, mx, my, border) - ref).max() < 1e-4

@@ -19,7 +19,7 @@ Usage:
   python tools/bench_dist_scaling.py --per-device 256 --repeats 3
 
 The script re-executes itself with the virtual-device env if needed, so it
-can be run directly from a TPU-pinned shell.
+can be run directly from any shell.
 """
 
 import argparse

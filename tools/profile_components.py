@@ -1,8 +1,8 @@
 """Per-component timing on the current device: dispatch latency, pyramid,
 KLT tracking, detection, PnP, BA — to find where the frame budget goes.
 
-Run on TPU: python tools/profile_components.py
-Run on CPU: JAX_PLATFORMS=cpu python tools/profile_components.py --platform cpu
+Run on the GPU: python tools/profile_components.py
+Run on the CPU: JAX_PLATFORMS=cpu python tools/profile_components.py
 """
 
 import argparse
@@ -25,14 +25,8 @@ def timeit(fn, *args, n=10, warmup=2):
 
 
 def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--platform", default=None)
-    args = ap.parse_args()
-    if args.platform:
-        os.environ["JAX_PLATFORMS"] = args.platform
+    argparse.ArgumentParser(description=__doc__).parse_args()
     import jax
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
     import jax.numpy as jnp
     import numpy as np
 
